@@ -1,19 +1,13 @@
 # Build the native host library (generator / host partitioner / scheduler)
-# and run the test suite. The Python package builds the .so lazily too;
-# this target is for explicit/CI builds.
+# and run the test suite. The Python package builds the library lazily too,
+# under a name keyed on a hash of its source; this target builds it ahead.
 
-NATIVE_DIR := icde2019_gpu_join_tpu/datagen/native
-SO := $(NATIVE_DIR)/libtpujoin_host.so
-
-.PHONY: all native test bench tpu-smoke clean
+.PHONY: all native test bench chip-smoke clean
 
 all: native
 
-native: $(SO)
-
-$(SO): $(NATIVE_DIR)/host_engine.cpp
-	g++ -O3 -shared -fPIC -fopenmp -mavx2 -o $@ $< || \
-	g++ -O3 -shared -fPIC -fopenmp -o $@ $<
+native:
+	python -c "from icde2019_gpu_join import datagen; assert datagen.native_lib()"
 
 test: native
 	python -m pytest tests/ -x -q
@@ -21,11 +15,10 @@ test: native
 bench: native
 	python bench.py
 
-# On-device gate: every Pallas path + all five configs at small scale on
-# the REAL chip. Run before any headline/PROGRESS claim (the CPU-only test
-# suite cannot see device-only breakage).
-tpu-smoke: native
-	python benchmarks/tpu_smoke.py
+# On-card gate: the engine's main path at real size on one GPU, bit-exact
+# against the oracles (the CPU test suite cannot see device-only breakage).
+chip-smoke: native
+	python chip_smoke.py
 
 clean:
-	rm -f $(SO)
+	rm -f icde2019_gpu_join/datagen/native/libjoin_host-*.so

@@ -1,41 +1,18 @@
 """Benchmark driver: one JSON line with the headline metric.
 
-Headline: join throughput (M rows/s) on the single-chip two-pass-radix
-config (BASELINE.json config 2 scaled by BENCH_SCALE): uniform PK-FK join
-with payload columns, generator_ETHZ-semantics datasets.
-
-vs_baseline is the fraction of this ENGINE CLASS's per-chip speed of light
-(re-derived in round 2; docs/DESIGN_NOTES.md "Radix vs sort: CLOSED").
-TPUs have no scatter, so partitioning degenerates to comparison sorting
-(measured: the radix prototype runs 3.4-6x slower than lax.sort); the
-engine is therefore a sort-merge engine and its SOL is per-phase
-max(HBM-stream bound, VPU compare-network bound):
-
-  sort SOL/side = max( 4 HBM passes x 16 B/row / BW,
-                       0.5*log2(n)*(log2(n)+1) stages x 6 int32 ops
-                         / 3 Tops/s VPU )
-  probe SOL     = max( 16 B/row / BW, window_slots x 1 op / VPU )
-
-(4 HBM passes = 1 base segmented-sort pass + 3 passes of a hypothetical
-perfect 64-way merge cascade; 6 ops/stage-row = compare+select on (k,v);
-3 Tops/s = measured VPU int32 mid-range; window_slots = 256 for the
-2-block banded window.) vs_baseline = t_sol / t_measured. The old 40 B/row
-HBM-scatter fiction (a CUDA-shaped bound no scatterless machine can
-approach) is still reported as vs_scatter_sol for transparency.
-
-vs_sort_frontier is the MEASURED engine-class frontier (round 5): lax.sort
-beat the packed-uint64 and the bit-exact Pallas merge-cascade alternates
-on device (356.8 / 219.8 / 152.4 Mrows/s at 2^27 — DESIGN_NOTES "The sort
-decision: CLOSED"), so the realistic bound is both sides sorted at the
-measured rate plus the probe bound. The gap between vs_sort_frontier and
-vs_baseline is compiler headroom, not engine design.
+Headline: join throughput (M rows/s) of ClusteredJoin.aggregate on the
+reference's config 2 (BASELINE.json) scaled by BENCH_SCALE: uniform PK-FK
+join, generator_ETHZ-semantics datasets, ones payloads. The result is gated
+bit-exactly against the independent host oracle and names the device, the
+card and its power limit.
 
 Env knobs: BENCH_SCALE (default 27 -> 2^27 = 134M rows/side), BENCH_SKEW
-(zipf z, default 0 = uniform).
+(zipf z, default 0 = uniform), BENCH_REPS (default 3).
 """
 
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -44,44 +21,24 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np
 
 
-def _oracle_expect_cached(rk, rp, sk, sp, scale, skew, seed=12345):
-    """Host-oracle SUM(Pr*Ps), cached under data/ keyed by the dataset
-    config (datasets are deterministic in (scale, skew, seed)) AND the
-    generator that produced them: the numpy datagen fallback matches the
-    native generator's distributions but is NOT bit-identical, so its
-    datasets have different true aggregates — a cache entry from one
-    generator must never gate data from the other."""
-    import json as _json
-
-    from icde2019_gpu_join_tpu import datagen
-
-    gen = "native" if datagen.native_lib() is not None else "numpy"
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "data")
-    os.makedirs(cache_dir, exist_ok=True)
-    path = os.path.join(
-        cache_dir,
-        f"oracle_agg_pkfk_s{scale}_z{skew}_seed{seed}_g{gen}.json")
-    if os.path.exists(path):
-        with open(path) as f:
-            return int(_json.load(f)["aggregate"])
-    agg = datagen.host_oracle_aggregate(rk, rp, sk, sp)
-    with open(path, "w") as f:
-        _json.dump({"aggregate": agg, "n_r": int(rk.size),
-                    "n_s": int(sk.size), "skew": skew, "seed": seed,
-                    "generator": gen}, f)
-    return agg
+def card() -> str:
+    """`name, power.limit` of the first card as nvidia-smi reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[0]
 
 
 def main():
     import jax
     import jax.numpy as jnp
 
-    from icde2019_gpu_join_tpu.models import ClusteredJoin
-    from icde2019_gpu_join_tpu.relation import Relation
-    from icde2019_gpu_join_tpu.utils import datasets, oracle
-    from icde2019_gpu_join_tpu.utils.timing import detect_hbm_gbps
+    from icde2019_gpu_join.models import ClusteredJoin
+    from icde2019_gpu_join.relation import Relation
+    from icde2019_gpu_join.utils import datasets
 
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("bench.py: needs a GPU")
     scale = int(os.environ.get("BENCH_SCALE", "27"))
     skew = float(os.environ.get("BENCH_SKEW", "0"))
     n_r = n_s = 1 << scale
@@ -96,9 +53,7 @@ def main():
 
     # Warm-up (compile), then best of BENCH_REPS measured runs — the
     # reference also re-runs each phase (outOfGPU_Join1_payload,
-    # hash_join_clustered_probe.cu:802-994); inputs are already on device
-    # so extra reps cost compute only, and min-of-N suppresses host-side
-    # scheduling noise.
+    # hash_join_clustered_probe.cu:802-994).
     res = engine.aggregate(r, s)
     elapsed = float("inf")
     for _ in range(int(os.environ.get("BENCH_REPS", "3"))):
@@ -109,53 +64,25 @@ def main():
 
     # Correctness gate vs the HOST oracle (C++ partitioned hash join, numpy
     # fallback) — an independent implementation sharing nothing with the
-    # device path (the previous gate, sort_merge_aggregate, shared lax.sort
-    # with the engine under test and would have agreed with a wrong sort).
-    # The value is disk-cached keyed by the deterministic dataset config;
-    # repeat runs (sort-impl A/Bs) hit the cache.
-    expect = _oracle_expect_cached(rk, rp, sk, sp, scale, skew)
+    # device path. Disk-cached, keyed by the deterministic dataset config.
+    expect = datasets.pkfk_oracle_count(rk, sk, scale, skew)
     ok = res.aggregate == expect
 
     mrows = (n_r + n_s) / elapsed / 1e6
-    hbm = detect_hbm_gbps()
-
-    # engine-class SOL (see module docstring + DESIGN_NOTES "Radix vs
-    # sort: CLOSED")
-    import math
-    VPU_OPS = 3e12
-    def sort_sol(n):
-        lg = math.log2(max(n, 2))
-        hbm_bound = 4 * 16.0 * n / (hbm * 1e9)
-        vpu_bound = 0.5 * lg * (lg + 1) * 6.0 * n / VPU_OPS
-        return max(hbm_bound, vpu_bound)
-    probe_sol = max(16.0 * (n_r + n_s) / (hbm * 1e9),
-                    256.0 * n_s / VPU_OPS)
-    t_sol = sort_sol(n_r) + sort_sol(n_s) + probe_sol
-    t_scatter_sol = 40.0 * (n_r + n_s) / (hbm * 1e9)
-    # measured engine-class frontier (round 5, DESIGN_NOTES "The sort
-    # decision: CLOSED"): lax.sort beat the packed-uint64 and Pallas
-    # merge-cascade alternates on device (356.8 vs 219.8 vs 152.4
-    # Mrows/s at 2^27), so the realistic frontier is two sides at the
-    # measured sort rate plus the probe bound.
-    MEASURED_SORT_ROWS_S = 356.8e6
-    t_frontier = (n_r + n_s) / MEASURED_SORT_ROWS_S + probe_sol
-
     print(json.dumps({
         "metric": f"join_throughput_{n_r>>20}Mx{n_s>>20}M"
                   + (f"_zipf{skew}" if skew else ""),
-        "value": round(mrows, 2),
+        "value": mrows,
         "unit": "Mrows/s",
-        "vs_baseline": round(t_sol / elapsed, 4),
-        "vs_sort_frontier": round(t_frontier / elapsed, 4),
-        "vs_scatter_sol": round(t_scatter_sol / elapsed, 4),
-        "sol_model": "max(HBM 4-pass, VPU compare-network) per phase",
         "correct": ok,
         "aggregate": res.aggregate,
-        "elapsed_s": round(elapsed, 4),
-        "phases": {p.name: round(p.seconds, 4) for p in res.timer.phases},
-        "hbm_gbps": hbm,
-        "sort_impl": os.environ.get("TPUJOIN_SORT_IMPL", "lax"),
-        "device": str(jax.devices()[0].device_kind),
+        "elapsed_s": elapsed,
+        "phases": {p.name: p.seconds for p in res.timer.phases},
+        "sort_impl": os.environ.get("JOIN_SORT_IMPL", "lax"),
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind,
+                   "count": len(jax.devices())},
+        "card": card(),
     }))
 
 

@@ -1,4 +1,4 @@
-"""Microbenchmarks of candidate TPU primitives for the partition engine.
+"""Microbenchmarks of candidate device primitives for the partition engine.
 
 Measures, on the real chip, the achievable rates of every primitive a
 radix-partition design could be built from, so kernel design decisions are

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from icde2019_gpu_join_tpu.ops.band_join import (
+from icde2019_gpu_join.ops.band_join import (
     banded_join_aggregate,
     banded_join_count,
     block_windows,
     sort_by_key,
 )
-from icde2019_gpu_join_tpu.utils import oracle
+from icde2019_gpu_join.utils import oracle
 from tests.conftest import make_tables
 
 
@@ -88,27 +88,8 @@ def test_block_windows_cover_all_matches(rng):
                 assert lo[b] <= j < hi[b], (b, j, lo[b], hi[b])
 
 
-def test_pallas_compare_matches_xla(rng):
-    """The Pallas banded-compare kernel (interpret mode on CPU) agrees with
-    the XLA formulation."""
-    from icde2019_gpu_join_tpu.ops.band_compare_pallas import banded_compare_sum
-
-    ch, wb = 16, 256
-    sk = rng.randint(0, 50, (ch, 128)).astype(np.int32)
-    sp = rng.randint(-5, 5, (ch, 128)).astype(np.int32)
-    rk = rng.randint(0, 50, (ch, wb)).astype(np.int32)
-    rp = rng.randint(-5, 5, (ch, wb)).astype(np.int32)
-    got = int(banded_compare_sum(jnp.asarray(sk), jnp.asarray(sp),
-                                 jnp.asarray(rk), jnp.asarray(rp),
-                                 interpret=True))
-    eq = sk[:, :, None] == rk[:, None, :]
-    expect = np.sum(np.where(eq, rp[:, None, :].astype(np.uint32), 0)
-                    * sp[:, :, None].astype(np.uint32), dtype=np.uint64)
-    assert got == int(np.uint32(expect))
-
-
 def test_banded_materialize(rng):
-    from icde2019_gpu_join_tpu.ops.band_join import banded_materialize
+    from icde2019_gpu_join.ops.band_join import banded_materialize
 
     rk = rng.randint(0, 400, 2000).astype(np.int32)
     sk = rng.randint(0, 400, 3000).astype(np.int32)
@@ -134,7 +115,7 @@ def test_banded_materialize_sparse_wide_fm_guard(rng):
     _extract_blocked's static R window. Scenario: unique-key R, a selective
     S whose last matched row has fm far beyond the window, plus trailing
     unmatched rows so s_nxt_blk clips to an all-unmatched block."""
-    from icde2019_gpu_join_tpu.ops.band_join import banded_materialize
+    from icde2019_gpu_join.ops.band_join import banded_materialize
 
     rk = np.arange(20000, dtype=np.int32)
     rp = (rk + 1).astype(np.int32)
@@ -157,7 +138,7 @@ def test_banded_materialize_sparse_wide_fm_guard(rng):
 
 
 def test_banded_match_descriptors(rng):
-    from icde2019_gpu_join_tpu.ops.band_join import (
+    from icde2019_gpu_join.ops.band_join import (
         banded_match_descriptors, sort_by_key)
 
     rk = rng.randint(0, 100, 600).astype(np.int32)
@@ -199,47 +180,12 @@ def test_banded_fuzz_vs_oracle(rng):
         assert got == oracle.join_aggregate(rk, rp, sk, sp), (n_r, n_s, kmax, w)
 
 
-def test_pallas_compare_per_s_matches_numpy(rng):
-    """Interpret-mode check for banded_compare_per_s (the kernel that broke
-    in round 1 because only banded_compare_sum was tested)."""
-    from icde2019_gpu_join_tpu.ops.band_compare_pallas import (
-        banded_compare_per_s)
-
-    ch, wb = 8, 256
-    sk = rng.randint(0, 60, (ch, 128)).astype(np.int32)
-    rk = rng.randint(0, 60, (ch, wb)).astype(np.int32)
-    rp = rng.randint(-9, 9, (ch, wb)).astype(np.int32)
-    h, t = banded_compare_per_s(jnp.asarray(sk), jnp.asarray(rk),
-                                jnp.asarray(rp), interpret=True)
-    eq = sk[:, :, None] == rk[:, None, :]
-    np.testing.assert_array_equal(np.asarray(h), eq.sum(axis=2))
-    np.testing.assert_array_equal(
-        np.asarray(t), np.where(eq, rp[:, None, :], 0).sum(axis=2))
-
-
-def test_pallas_compare_first_matches_numpy(rng):
-    """Interpret-mode check for banded_compare_first."""
-    from icde2019_gpu_join_tpu.ops.band_compare_pallas import (
-        banded_compare_first)
-
-    ch, wb = 8, 256
-    sk = rng.randint(0, 60, (ch, 128)).astype(np.int32)
-    rk = rng.randint(0, 60, (ch, wb)).astype(np.int32)
-    gidx = rng.permutation(ch * wb).reshape(ch, wb).astype(np.int32)
-    h, fm = banded_compare_first(jnp.asarray(sk), jnp.asarray(rk),
-                                 jnp.asarray(gidx), interpret=True)
-    eq = sk[:, :, None] == rk[:, None, :]
-    np.testing.assert_array_equal(np.asarray(h), eq.sum(axis=2))
-    expect_fm = np.where(eq, gidx[:, None, :], 0x7FFFFFFF).min(axis=2)
-    np.testing.assert_array_equal(np.asarray(fm), expect_fm)
-
-
 def test_banded_materialize_wrap_ring(rng):
     """FOLD-ring semantics: capacity < total matches, match m lands in slot
     m mod capacity with later matches overwriting earlier (the engine's
     match order is S-sorted; the reference ring is
     src/join-primitives.cu:1371-1373)."""
-    from icde2019_gpu_join_tpu.ops.band_join import (
+    from icde2019_gpu_join.ops.band_join import (
         banded_match_descriptors, banded_materialize, sort_by_key)
 
     rk = rng.randint(0, 50, 700).astype(np.int32)
@@ -275,35 +221,10 @@ def test_banded_materialize_wrap_ring(rng):
     np.testing.assert_array_equal(np.asarray(out_s), exp_s)
 
 
-def test_interval_select_interpret(rng):
-    from icde2019_gpu_join_tpu.ops.band_compare_pallas import (
-        banded_interval_select)
-
-    ch, wb = 4, 256
-    # disjoint intervals per row
-    widths = rng.randint(0, 5, (ch, wb)).astype(np.int32)
-    lo = np.cumsum(widths, axis=1) - widths
-    hi = lo + widths
-    p1 = rng.randint(1, 100, (ch, wb)).astype(np.int32)
-    p2 = rng.randint(1, 100, (ch, wb)).astype(np.int32)
-    p3 = np.ones((ch, wb), np.int32)
-    pos = rng.randint(0, int(hi.max()) + 3, (ch, 128)).astype(np.int32)
-    o1, o2, o3 = banded_interval_select(
-        jnp.asarray(pos), jnp.asarray(lo), jnp.asarray(hi),
-        jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(p3), interpret=True)
-    inb = (lo[:, None, :] <= pos[:, :, None]) & (pos[:, :, None] < hi[:, None, :])
-    np.testing.assert_array_equal(np.asarray(o1),
-                                  np.where(inb, p1[:, None, :], 0).sum(2))
-    np.testing.assert_array_equal(np.asarray(o2),
-                                  np.where(inb, p2[:, None, :], 0).sum(2))
-    np.testing.assert_array_equal(np.asarray(o3),
-                                  np.where(inb, p3[:, None, :], 0).sum(2))
-
-
 def test_materialize_fast_path_engaged_and_exact(rng):
     """The block-windowed fast path must engage on matched-dense inputs and
     agree with the oracle; sparse/filtered inputs fall back, also exact."""
-    from icde2019_gpu_join_tpu.ops.band_join import banded_materialize
+    from icde2019_gpu_join.ops.band_join import banded_materialize
 
     cases = [
         # dense PK-FK-ish: fast path territory
@@ -335,7 +256,7 @@ def test_materialize_fast_path_engaged_and_exact(rng):
 def test_materialize_fast_path_forced(rng):
     """Force the block-windowed path alone on a dense case: exactness here
     (not just via the cond) proves the fast branch itself."""
-    from icde2019_gpu_join_tpu.ops.band_join import banded_materialize
+    from icde2019_gpu_join.ops.band_join import banded_materialize
 
     rk = rng.permutation(4000).astype(np.int32)
     sk = rng.randint(0, 4000, 6000).astype(np.int32)
@@ -352,3 +273,103 @@ def test_materialize_fast_path_forced(rng):
     got = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
     exp = expect[(expect[:, 0] != 0) | (expect[:, 1] != 0)]
     np.testing.assert_array_equal(got, exp)
+
+
+# ---- the four per-chunk compare/select helpers at the engine's real chunk
+# width ([2048, 128] S tiles against [2048, W*128] windows), each against a
+# numpy uint64 reference reduced mod 2^32; masked window rows included.
+
+_CH = 2048
+_R_PAD = 0x7FFFFFFF
+
+
+def _compare_inputs(w, seed):
+    r = np.random.RandomState(seed)
+    wb = w * 128
+    sk = r.randint(0, 300, (_CH, 128)).astype(np.int32)
+    sp = r.randint(-2**31, 2**31, (_CH, 128), dtype=np.int64).astype(np.int32)
+    rk = r.randint(0, 300, (_CH, wb)).astype(np.int32)
+    rp = r.randint(-2**31, 2**31, (_CH, wb), dtype=np.int64).astype(np.int32)
+    masked = r.rand(_CH, wb) < 0.25       # rows outside any window
+    rk[masked] = _R_PAD
+    rp[masked] = 0
+    return sk, sp, rk, rp
+
+
+def _row_chunks(*arrs, step=128):
+    for i in range(0, _CH, step):
+        yield tuple(a[i:i + step] for a in arrs)
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_compare_sum_matches_numpy(w):
+    from icde2019_gpu_join.ops.band_join import banded_compare_sum
+
+    sk, sp, rk, rp = _compare_inputs(w, 10 + w)
+    got = int(banded_compare_sum(*map(jnp.asarray, (sk, sp, rk, rp))))
+    expect = 0
+    for skc, spc, rkc, rpc in _row_chunks(sk, sp, rk, rp):
+        eq = skc[:, :, None] == rkc[:, None, :]
+        per_s = np.where(eq, rpc[:, None, :].astype(np.uint32), 0).sum(
+            axis=2, dtype=np.uint64)
+        expect += int(np.sum(per_s * spc.astype(np.uint32), dtype=np.uint64))
+    assert got == expect % 2**32
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_compare_per_s_matches_numpy(w):
+    from icde2019_gpu_join.ops.band_join import banded_compare_per_s
+
+    sk, _, rk, rp = _compare_inputs(w, 20 + w)
+    h, t = banded_compare_per_s(*map(jnp.asarray, (sk, rk, rp)))
+    eh, et = [], []
+    for skc, rkc, rpc in _row_chunks(sk, rk, rp):
+        eq = skc[:, :, None] == rkc[:, None, :]
+        eh.append(eq.sum(axis=2))
+        et.append(np.where(eq, rpc[:, None, :].astype(np.int64), 0).sum(axis=2))
+    np.testing.assert_array_equal(np.asarray(h), np.concatenate(eh))
+    np.testing.assert_array_equal(
+        np.asarray(t), (np.concatenate(et) % 2**32).astype(np.uint32).view(
+            np.int32))
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_compare_first_matches_numpy(w):
+    from icde2019_gpu_join.ops.band_join import banded_compare_first
+
+    sk, _, rk, _ = _compare_inputs(w, 30 + w)
+    gidx = np.random.RandomState(w).permutation(rk.size).reshape(
+        rk.shape).astype(np.int32)
+    h, fm = banded_compare_first(*map(jnp.asarray, (sk, rk, gidx)))
+    eh, ef = [], []
+    for skc, rkc, gxc in _row_chunks(sk, rk, gidx):
+        eq = skc[:, :, None] == rkc[:, None, :]
+        eh.append(eq.sum(axis=2))
+        ef.append(np.where(eq, gxc[:, None, :], _R_PAD).min(axis=2))
+    np.testing.assert_array_equal(np.asarray(h), np.concatenate(eh))
+    np.testing.assert_array_equal(np.asarray(fm), np.concatenate(ef))
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_interval_select_matches_numpy(w):
+    from icde2019_gpu_join.ops.band_join import banded_interval_select
+
+    r = np.random.RandomState(40 + w)
+    wb = w * 128
+    widths = r.randint(0, 5, (_CH, wb)).astype(np.int32)
+    lo = np.cumsum(widths, axis=1, dtype=np.int32) - widths
+    hi = lo + widths
+    hi[r.rand(_CH, wb) < 0.25] = lo[0, 0] - 1   # masked: empty interval
+    p1 = r.randint(-2**31, 2**31, (_CH, wb), dtype=np.int64).astype(np.int32)
+    p2 = r.randint(-1000, 1000, (_CH, wb)).astype(np.int32)
+    p3 = np.ones((_CH, wb), np.int32)
+    pos = r.randint(0, int(hi.max()) + 3, (_CH, 128)).astype(np.int32)
+    outs = banded_interval_select(*map(jnp.asarray, (pos, lo, hi, p1, p2, p3)))
+    for got, p in zip(outs, (p1, p2, p3)):
+        exp = []
+        for pc, lc, hc, ppc in _row_chunks(pos, lo, hi, p):
+            inb = (lc[:, None, :] <= pc[:, :, None]) & (
+                pc[:, :, None] < hc[:, None, :])
+            assert inb.sum(axis=2).max() <= 1       # disjoint intervals
+            exp.append(np.where(inb, ppc[:, None, :], 0).sum(axis=2))
+        np.testing.assert_array_equal(np.asarray(got), np.concatenate(exp))

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from icde2019_gpu_join_tpu.cli import main
+from icde2019_gpu_join.cli import main
 
 
 def test_cli_device_join(capsys):

@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from icde2019_gpu_join_tpu.parallel import (
+from icde2019_gpu_join.parallel import (
     distributed_join_aggregate,
     distributed_join_aggregate_2level,
     make_mesh,
 )
-from icde2019_gpu_join_tpu.parallel.mesh import make_mesh_2d
-from icde2019_gpu_join_tpu.utils import oracle
+from icde2019_gpu_join.parallel.mesh import make_mesh_2d
+from icde2019_gpu_join.utils import oracle
 from tests.conftest import make_tables
 
 
@@ -88,7 +88,7 @@ def test_distributed_zipf_skew(rng):
     """Distributed Zipf z=1.05 join (BASELINE config 4's skew inside the
     exchange): heavy keys funnel whole destinations onto single chips;
     exact caps absorb it and the result stays bit-exact."""
-    from icde2019_gpu_join_tpu import datagen
+    from icde2019_gpu_join import datagen
 
     n_r, n_s = 8192, 32768
     rk = datagen.random_unique_gen(n_r, n_r - 1, seed=5)
@@ -108,8 +108,8 @@ def test_distributed_zipf_skew(rng):
 def test_segmented_distributed_join(rng):
     """Streamed-probe distributed join (exchange/probe pipeline) matches
     the oracle and the one-shot distributed join; exact caps by default."""
-    from icde2019_gpu_join_tpu.parallel.dist_join import distributed_join_segmented
-    from icde2019_gpu_join_tpu.parallel.mesh import make_mesh
+    from icde2019_gpu_join.parallel.dist_join import distributed_join_segmented
+    from icde2019_gpu_join.parallel.mesh import make_mesh
 
     nd = len(jax.devices())
     n_r, n_s = 64 * nd, 512 * nd
@@ -127,7 +127,7 @@ def test_segmented_distributed_join(rng):
 
 def test_plan_cap_exact(rng):
     """plan_cap returns >= the true max bucket fill, 128-rounded."""
-    from icde2019_gpu_join_tpu.parallel import plan as xplan
+    from icde2019_gpu_join.parallel import plan as xplan
 
     nd = len(jax.devices())
     n = 1024 * nd
@@ -148,7 +148,7 @@ def test_plan_cap_exact(rng):
 def test_bucket_frames_roundtrip(rng):
     """partition_to_buckets preserves the payload!=0 row multiset, obeys
     metadata (start/count), and never overflows with an exact cap."""
-    from icde2019_gpu_join_tpu.parallel.exchange import (
+    from icde2019_gpu_join.parallel.exchange import (
         frames_valid_mask, partition_to_buckets, partition_to_buckets_grouped)
 
     n, nd = 5000, 8
@@ -178,8 +178,8 @@ def test_bucket_frames_roundtrip(rng):
         assert np.all(oracle.partition_ids(k2[d][mask[d]], 3, 0) == d)
 
     # grouped variant: same live multiset (block-cap from the exact helper)
-    from icde2019_gpu_join_tpu.ops.bits import rotate_keys
-    from icde2019_gpu_join_tpu.ops.partition_radix import grouped_block_counts
+    from icde2019_gpu_join.ops.bits import rotate_keys
+    from icde2019_gpu_join.ops.partition_radix import grouped_block_counts
 
     pb = np.asarray(grouped_block_counts(
         rotate_keys(jnp.asarray(keys), 3, 0), 3, 1024))
@@ -202,7 +202,7 @@ def test_bucket_frames_single_bucket(rng):
     must not reshape a 2-group sort into a 1-bucket frame. Both bucketing
     methods must return one frame holding the full live multiset, and
     distributed_join_aggregate on a 1-device mesh must run end-to-end."""
-    from icde2019_gpu_join_tpu.parallel.exchange import (
+    from icde2019_gpu_join.parallel.exchange import (
         frames_valid_mask, partition_to_buckets, partition_to_buckets_grouped)
 
     n = 5000
@@ -265,7 +265,7 @@ def test_heavy_split_single_dominant_key(rng):
     duplicated R key on the hot value), (c) project per-chip probe load
     within 2x of the uniform share, and (d) actually be the path
     distributed_join_segmented takes."""
-    from icde2019_gpu_join_tpu.parallel import dist_join, plan as xplan
+    from icde2019_gpu_join.parallel import dist_join, plan as xplan
 
     n_r, n_s, nd = 2048, 16384, 8
     rk = rng.permutation(n_r).astype(np.int32)
@@ -302,7 +302,7 @@ def test_heavy_split_single_dominant_key(rng):
 def test_heavy_split_adversarial_zipf(rng):
     """z=1.6 Zipf probe keys at 8 devices: real concentration (top key
     ~30%+). Bit-exact through the auto split path."""
-    from icde2019_gpu_join_tpu.parallel import dist_join
+    from icde2019_gpu_join.parallel import dist_join
 
     n_r, n_s, nd = 4096, 32768, 8
     rk = rng.permutation(n_r).astype(np.int32)
@@ -323,7 +323,7 @@ def test_heavy_split_adversarial_zipf(rng):
 def test_heavy_split_uniform_is_noop(rng):
     """Uniform keys must NOT take the split path (coarse check passes) and
     stay bit-exact on the normal pipeline."""
-    from icde2019_gpu_join_tpu.parallel import dist_join
+    from icde2019_gpu_join.parallel import dist_join
 
     rk, rp, sk, sp = make_tables(rng, n_r=4096, n_s=16384, dup_build=True)
     mesh = make_mesh(8)
@@ -342,7 +342,7 @@ def test_distributed_materialize_matches_oracle(rng):
     and aggregates'): the union of per-chip output buffers is exactly the
     oracle's (Pr, Ps) match multiset; per-chip totals sum to the match
     count; pad rows exchanged between chips never materialize."""
-    from icde2019_gpu_join_tpu.parallel import distributed_join_materialize
+    from icde2019_gpu_join.parallel import distributed_join_materialize
 
     n_r, n_s, nd = 4096, 16384, 8
     rk = rng.randint(0, 2 * n_r, n_r).astype(np.int32)
@@ -376,7 +376,7 @@ def test_distributed_materialize_matches_oracle(rng):
 def test_distributed_materialize_truncates(rng):
     """wrap=False with a tiny per-chip capacity: totals still report the
     TRUE per-chip match counts and every emitted pair is a real match."""
-    from icde2019_gpu_join_tpu.parallel import distributed_join_materialize
+    from icde2019_gpu_join.parallel import distributed_join_materialize
 
     n_r, n_s, nd = 1024, 8192, 8
     rk = rng.permutation(n_r).astype(np.int32)
@@ -407,8 +407,8 @@ def test_distributed_segmented_fuzz_vs_host_oracle(seed):
     C++ host oracle: dup-heavy / full-domain / skew-concentrated keys and
     full-range payloads (mod-2^32 wraparound through the exchange). Keys
     stay within the engine key-domain contract (>= 0; relation.py)."""
-    from icde2019_gpu_join_tpu import datagen
-    from icde2019_gpu_join_tpu.parallel.dist_join import (
+    from icde2019_gpu_join import datagen
+    from icde2019_gpu_join.parallel.dist_join import (
         distributed_join_segmented)
 
     g = np.random.default_rng(4000 + seed)
@@ -469,7 +469,7 @@ def test_heavy_split_executed_balance(rng):
     the actual per-chip probe loads out of the exchange metadata and check
     (a) they equal the plan's projection and (b) spread <= 2x uniform,
     while the same data WITHOUT the split leaves >2x on one chip."""
-    from icde2019_gpu_join_tpu.parallel import dist_join, plan as xplan
+    from icde2019_gpu_join.parallel import dist_join, plan as xplan
 
     n_r, n_s, nd = 2048, 16384, 8
     rk = rng.permutation(n_r).astype(np.int32)
@@ -509,7 +509,7 @@ def test_heavy_split_2level_dominant_key(rng):
     (round-4 verdict item 5): 50%-one-key S through a 2x4 mesh stays
     bit-exact, takes the heavy path, and the EXECUTED per-chip load is
     within 2x uniform (without the split it lands >2x on one chip)."""
-    from icde2019_gpu_join_tpu.parallel import dist_join
+    from icde2019_gpu_join.parallel import dist_join
 
     n_r, n_s = 2048, 16384
     rk = rng.permutation(n_r).astype(np.int32)
@@ -545,7 +545,7 @@ def test_heavy_split_2level_dominant_key(rng):
 @needs_8
 def test_heavy_split_2level_uniform_noop(rng):
     """Uniform keys must not trigger the 2-level heavy path."""
-    from icde2019_gpu_join_tpu.parallel import dist_join
+    from icde2019_gpu_join.parallel import dist_join
 
     rk, rp, sk, sp = make_tables(rng, n_r=4096, n_s=8192, dup_build=True)
     mesh = make_mesh_2d(2, 4)
@@ -565,8 +565,8 @@ def test_heavy_split_materialize_dominant_key(rng):
     the oracle's exactly, no chip's ring may absorb the whole hot key
     (per-chip totals <= 2x uniform matches), and without the split the
     owner chip provably takes >2x."""
-    from icde2019_gpu_join_tpu.parallel import dist_join
-    from icde2019_gpu_join_tpu.parallel.dist_join import (
+    from icde2019_gpu_join.parallel import dist_join
+    from icde2019_gpu_join.parallel.dist_join import (
         distributed_join_materialize)
 
     n_r, n_s, nd = 2048, 16384, 8
@@ -619,7 +619,7 @@ def test_distributed_2level_fuzz_vs_host_oracle(seed):
     """Randomized sweep of the 2-level pipeline (exact caps + PRPD
     heavy-split auto-detection) against the independent C++ host oracle,
     same adversarial families as the segmented fuzz."""
-    from icde2019_gpu_join_tpu import datagen
+    from icde2019_gpu_join import datagen
 
     g = np.random.default_rng(5000 + seed)
     n_r, n_s = 4096, 16384
@@ -655,7 +655,7 @@ def test_distributed_materialize_fuzz_multiset(seed):
     """Randomized sweep of distributed materialization (incl. the heavy
     path when skew trips the auto check): the union of per-chip rings is
     exactly the oracle's (Pr, Ps) multiset."""
-    from icde2019_gpu_join_tpu.parallel.dist_join import (
+    from icde2019_gpu_join.parallel.dist_join import (
         distributed_join_materialize)
 
     g = np.random.default_rng(6000 + seed)

@@ -12,10 +12,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from icde2019_gpu_join_tpu import datagen
-from icde2019_gpu_join_tpu.models import ClusteredJoin
-from icde2019_gpu_join_tpu.relation import Relation
-from icde2019_gpu_join_tpu.utils import oracle
+from icde2019_gpu_join import datagen
+from icde2019_gpu_join.models import ClusteredJoin
+from icde2019_gpu_join.relation import Relation
+from icde2019_gpu_join.utils import oracle
 
 
 def _expect(rk, rp, sk, sp):
@@ -95,8 +95,8 @@ def test_engine_fuzz_materialize_multiset():
 def test_streaming_fuzz_vs_host_oracle(seed):
     """Streaming regime under adversarial inputs: segment size not dividing
     n_s, dup-heavy / full-domain keys, full-range payloads."""
-    from icde2019_gpu_join_tpu.config import EngineConfig
-    from icde2019_gpu_join_tpu.models.streaming import streaming_join_aggregate
+    from icde2019_gpu_join.config import EngineConfig
+    from icde2019_gpu_join.models.streaming import streaming_join_aggregate
 
     rng = np.random.default_rng(2000 + seed)
     n_r, n_s = 6_000, 19_001  # n_s prime-ish: last segment ragged
@@ -118,7 +118,7 @@ def test_streaming_fuzz_vs_host_oracle(seed):
 def test_coprocess_fuzz_vs_host_oracle(seed):
     """Coprocess regime (host pre-partition + knapsack batches + staged
     device refine) under dup-heavy and full-domain keys."""
-    from icde2019_gpu_join_tpu.models.coprocess import coprocess_join_aggregate
+    from icde2019_gpu_join.models.coprocess import coprocess_join_aggregate
 
     rng = np.random.default_rng(3000 + seed)
     n_r, n_s = 9_000, 13_000
@@ -134,11 +134,10 @@ def test_coprocess_fuzz_vs_host_oracle(seed):
 
 
 def test_packed_sort_impl_end_to_end():
-    """The packed (1-operand uint64) sort impl — one of the two device
-    challengers to lax.sort — drives the full banded pipeline bit-exactly
-    against the C++ oracle (the merge cascade has its own interpret-mode
-    suite, tests/test_merge_pallas.py)."""
-    from icde2019_gpu_join_tpu.ops import band_join as bj
+    """The packed (1-operand uint64) sort impl — the alternative to
+    lax.sort — drives the full banded pipeline bit-exactly against the C++
+    oracle."""
+    from icde2019_gpu_join.ops import band_join as bj
 
     rng = np.random.default_rng(55)
     n_r, n_s = 12_201, 24_575

@@ -48,7 +48,7 @@ def ref_gen():
 
 @pytest.fixture(scope="module")
 def native():
-    from icde2019_gpu_join_tpu import datagen
+    from icde2019_gpu_join import datagen
     if datagen.native_lib() is None:
         pytest.skip("native lib unavailable")
     return datagen

@@ -6,8 +6,8 @@ coprocess_join_aggregate."""
 import numpy as np
 import pytest
 
-from icde2019_gpu_join_tpu import datagen
-from icde2019_gpu_join_tpu.utils import oracle
+from icde2019_gpu_join import datagen
+from icde2019_gpu_join.utils import oracle
 
 
 @pytest.fixture(scope="module")

@@ -6,12 +6,12 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from icde2019_gpu_join_tpu.config import EngineConfig
-from icde2019_gpu_join_tpu.models import ClusteredJoin, clustered_probe_join
-from icde2019_gpu_join_tpu.models.coprocess import coprocess_join_aggregate
-from icde2019_gpu_join_tpu.models.streaming import streaming_join_aggregate
-from icde2019_gpu_join_tpu.relation import Relation
-from icde2019_gpu_join_tpu.utils import oracle
+from icde2019_gpu_join.config import EngineConfig
+from icde2019_gpu_join.models import ClusteredJoin, clustered_probe_join
+from icde2019_gpu_join.models.coprocess import coprocess_join_aggregate
+from icde2019_gpu_join.models.streaming import streaming_join_aggregate
+from icde2019_gpu_join.relation import Relation
+from icde2019_gpu_join.utils import oracle
 from tests.conftest import make_tables
 
 
@@ -68,8 +68,8 @@ def test_streaming_join(rng):
 def test_streaming_uses_staging_copy(rng, monkeypatch):
     """C17 wiring: segment assembly must go through datagen.staging_copy
     (the threaded AVX2 staging gather), and results stay exact."""
-    from icde2019_gpu_join_tpu import datagen
-    from icde2019_gpu_join_tpu.models import streaming as st
+    from icde2019_gpu_join import datagen
+    from icde2019_gpu_join.models import streaming as st
 
     calls = {"n": 0}
     real = datagen.staging_copy
@@ -124,8 +124,8 @@ def test_placement_routes_to_streaming(rng):
     """probe_placement='host' must route through the streaming regime even
     when S fits in memory (the MEM_TYPE placement analog)."""
     import dataclasses
-    from icde2019_gpu_join_tpu.config import EngineConfig
-    from icde2019_gpu_join_tpu.models.joins import clustered_probe_join
+    from icde2019_gpu_join.config import EngineConfig
+    from icde2019_gpu_join.models.joins import clustered_probe_join
 
     rk, rp, sk, sp = make_tables(rng)
     cfg = dataclasses.replace(EngineConfig(), probe_placement="host",
@@ -138,7 +138,7 @@ def test_placement_routes_to_streaming(rng):
 
 
 def test_placement_helpers():
-    from icde2019_gpu_join_tpu.utils.placement import place, place_relation
+    from icde2019_gpu_join.utils.placement import place, place_relation
 
     x = np.arange(256, dtype=np.int32)
     hbm = place(x, "hbm")

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from icde2019_gpu_join_tpu.ops import (
+from icde2019_gpu_join.ops import (
     filter_compact,
     groupby_count_sum,
     histogram,
@@ -15,9 +15,9 @@ from icde2019_gpu_join_tpu.ops import (
     sort_merge_aggregate,
     sort_merge_count,
 )
-from icde2019_gpu_join_tpu.ops.partition import radix_partition_multipass
-from icde2019_gpu_join_tpu.ops.groupby import groupby_count_sum_onehot
-from icde2019_gpu_join_tpu.utils import oracle
+from icde2019_gpu_join.ops.partition import radix_partition_multipass
+from icde2019_gpu_join.ops.groupby import groupby_count_sum_onehot
+from icde2019_gpu_join.utils import oracle
 from tests.conftest import make_tables
 
 
@@ -128,8 +128,8 @@ def test_radix_sort(rng):
 
 
 def test_debug_validators(rng):
-    from icde2019_gpu_join_tpu.utils import debug
-    from icde2019_gpu_join_tpu.ops.band_join import sort_by_key
+    from icde2019_gpu_join.utils import debug
+    from icde2019_gpu_join.ops.band_join import sort_by_key
 
     rk, rp, _, _ = make_tables(rng, n_r=2000, n_s=10, dup_build=True)
     rel = radix_partition(jnp.asarray(rk), jnp.asarray(rp), 5, 0)
@@ -141,16 +141,16 @@ def test_debug_validators(rng):
 def test_key_domain_validator():
     import os
     import pytest as _pytest
-    from icde2019_gpu_join_tpu.utils.debug import validate_key_domain
-    from icde2019_gpu_join_tpu.relation import Relation
+    from icde2019_gpu_join.utils.debug import validate_key_domain
+    from icde2019_gpu_join.relation import Relation
 
     validate_key_domain(np.arange(10, dtype=np.int32))
     with _pytest.raises(ValueError):
         validate_key_domain(np.array([3, -1, 5], np.int32))
-    os.environ["TPUJOIN_DEBUG"] = "1"
+    os.environ["JOIN_DEBUG"] = "1"
     try:
         with _pytest.raises(ValueError):
             Relation(jnp.asarray(np.array([-5], np.int32)))
         Relation(jnp.asarray(np.array([5], np.int32)))
     finally:
-        del os.environ["TPUJOIN_DEBUG"]
+        del os.environ["JOIN_DEBUG"]

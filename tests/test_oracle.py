@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from icde2019_gpu_join_tpu.utils import oracle
+from icde2019_gpu_join.utils import oracle
 from tests.conftest import make_tables
 
 
@@ -62,7 +62,7 @@ def test_groupby(rng):
 
 
 def test_create_relation_n_tiling():
-    from icde2019_gpu_join_tpu.utils import datasets
+    from icde2019_gpu_join.utils import datasets
 
     base = np.arange(5, dtype=np.int32)
     out = datasets.create_relation_n(base, 3)

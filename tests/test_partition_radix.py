@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from icde2019_gpu_join_tpu.ops.partition_radix import (
+from icde2019_gpu_join.ops.partition_radix import (
     radix_group, radix_sort_via_grouping)
 
 SENT = 0x7FFFFFFF

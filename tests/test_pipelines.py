@@ -3,11 +3,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from icde2019_gpu_join_tpu.models.pipelines import (
+from icde2019_gpu_join.models.pipelines import (
     filter_groupby,
     filter_probe_groupby,
 )
-from icde2019_gpu_join_tpu.utils import oracle
+from icde2019_gpu_join.utils import oracle
 
 
 def test_filter_probe_groupby(rng):
@@ -81,7 +81,7 @@ def test_filter_probe_groupby_streamed_matches_fused(rng):
     """The out-of-HBM config-3 regime: probe side in equal segments with
     uint32 partial accumulation must equal the fused pipeline bit for bit
     (including wraparound sums and dup-key R)."""
-    from icde2019_gpu_join_tpu.models.pipelines import (
+    from icde2019_gpu_join.models.pipelines import (
         filter_probe_groupby_streamed)
 
     n_r, n_s, G = 3000, 8192, 11

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from icde2019_gpu_join_tpu.ops import probe as probe_ops
-from icde2019_gpu_join_tpu.ops.partition import radix_partition
-from icde2019_gpu_join_tpu.utils import oracle
+from icde2019_gpu_join.ops import probe as probe_ops
+from icde2019_gpu_join.ops.partition import radix_partition
+from icde2019_gpu_join.utils import oracle
 from tests.conftest import make_tables
 
 
@@ -112,7 +112,7 @@ def test_blocked_probe_late_aggregate(rng):
 
 def test_global_ht_baseline(rng):
     """C14 global chained-HT baseline analog vs oracle."""
-    from icde2019_gpu_join_tpu.ops.perfect_hash import global_ht_join_aggregate
+    from icde2019_gpu_join.ops.perfect_hash import global_ht_join_aggregate
 
     rk = rng.randint(0, 1 << 20, 20_000).astype(np.int32)
     sk = rng.randint(0, 1 << 20, 30_000).astype(np.int32)
@@ -134,7 +134,7 @@ def test_global_ht_no_overflow_and_negative_keys(rng):
     its -1 pad sentinel); if a jax/seed change ever trips this, pick a
     different seed rather than weakening the assert."""
     import math
-    from icde2019_gpu_join_tpu.ops.perfect_hash import (
+    from icde2019_gpu_join.ops.perfect_hash import (
         global_ht_build, global_ht_join_aggregate)
 
     rk = (rng.permutation(1 << 15)[:10_000].astype(np.int32) - (1 << 14))
@@ -154,7 +154,7 @@ def test_global_ht_no_overflow_and_negative_keys(rng):
 def test_global_ht_single_dominant_key(rng):
     """Adversarial: every build row shares one key -> one bucket chain of
     length n >> chain_cap; the overflow fallback must keep it bit-exact."""
-    from icde2019_gpu_join_tpu.ops.perfect_hash import global_ht_join_aggregate
+    from icde2019_gpu_join.ops.perfect_hash import global_ht_join_aggregate
 
     rk = np.full(5_000, 42, np.int32)
     sk = np.where(rng.rand(8_000) < 0.5, 42, 7).astype(np.int32)
@@ -170,7 +170,7 @@ def test_global_ht_jittable(rng):
     jittable function."""
     import jax
 
-    from icde2019_gpu_join_tpu.ops.perfect_hash import global_ht_join_aggregate
+    from icde2019_gpu_join.ops.perfect_hash import global_ht_join_aggregate
 
     rk = rng.randint(0, 1 << 12, 4_096).astype(np.int32)
     sk = rng.randint(0, 1 << 12, 8_192).astype(np.int32)
